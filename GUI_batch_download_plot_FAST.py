@@ -218,12 +218,14 @@ class ActionRunner:
     on_finished: callable = lambda: None
     on_error: callable = lambda code: None
     _proc: multiprocessing.Process | None = field(default=None, init=False)
+    _watcher: threading.Thread | None = field(default=None, init=False)
     _stopped: bool = field(default=False, init=False)
 
     def start(self) -> None:
         self._proc = multiprocessing.Process(target=self.target, args=self.args, kwargs=self.kwargs)
         self._proc.start()
-        threading.Thread(target=self._watch, daemon=True).start()
+        self._watcher = threading.Thread(target=self._watch, daemon=True)
+        self._watcher.start()
 
     def _watch(self) -> None:
         assert self._proc is not None
@@ -243,7 +245,9 @@ class ActionRunner:
 
     def wait(self) -> int | None:
         if self._proc is not None:
-            self._proc.join()
+            # Join the watcher, not the process: two threads joining one
+            # child race on reaping it, and the loser reads exit code None.
+            self._watcher.join()
             return self._proc.exitcode
         return None
 

@@ -1,10 +1,10 @@
-"""TPU-native configurable spectrogram engine.
+"""GPU-accelerated configurable spectrogram engine.
 
 A ground-up rebuild of the capabilities of ev-hansen/Configurable-Spectrograms
-(reference: /root/reference) designed for TPU hardware: the spectrogram math
-(pitch-angle masking, nansum collapse, percentile color bounds, log/linear
-normalization, extent resampling, and colormap-LUT rasterization) runs as
-fused, jittable JAX/Pallas device code, batches of orbits are vmapped and
+for an accelerator (an NVIDIA GPU; the CPU also runs it): the spectrogram
+math (pitch-angle masking, nansum collapse, percentile color bounds,
+log/linear normalization, extent resampling, and colormap-LUT
+rasterization) runs as fused, jittable JAX device code, batches of orbits are vmapped and
 sharded over a ``jax.sharding.Mesh``, and folder-wide extrema passes are
 device-side collective reductions.  Host-side code handles CDF decoding,
 figure composition (PIL), progress-JSON resume, and CLI entry points.

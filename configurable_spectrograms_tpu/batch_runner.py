@@ -9,9 +9,9 @@ items are identified by ``repr(item)``, statuses are
 ``{completed_items, errors, no_data, last_index, schema_version}``.
 
 One deliberate divergence from the reference: CPU-bound rendering here is
-*device*-bound (one TPU serves the whole host), so callers should hand in
-``ThreadPoolExecutor`` factories -- worker threads overlap host I/O and
-PNG encoding while device dispatches serialize on the TPU stream.  Process
+*device*-bound (one accelerator process serves the whole host), so callers
+should hand in ``ThreadPoolExecutor`` factories -- worker threads overlap
+host I/O and PNG encoding while device dispatches queue on the device.  Process
 pools still work for purely host-side workloads.
 """
 

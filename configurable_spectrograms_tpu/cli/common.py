@@ -34,11 +34,10 @@ def report_render_outcome(produced: bool, output_path: str) -> int:
 def run_cli(main: Callable[[], int | None]) -> None:
     """Invoke *main*, translating Ctrl-C into the conventional exit code 130.
 
-    Exits via ``os._exit`` after flushing stdio: when the device link is
-    dead, the watchdog link probe leaves a daemon thread blocked inside a
-    device transfer, and normal interpreter teardown of that thread can
-    abort the process AFTER main() succeeded -- clobbering the documented
-    exit codes.  (Same pattern as the reference GUI's ``os._exit(0)``
+    Exits via ``os._exit`` after flushing stdio: a dispatch watchdog that
+    timed out leaves a daemon thread blocked inside a device transfer, and
+    normal interpreter teardown of that thread can abort the process AFTER
+    main() succeeded -- clobbering the documented exit codes.  (Same pattern as the reference GUI's ``os._exit(0)``
     bypassing multiprocessing atexit, reference
     GUI_batch_download_plot_FAST.py:2157-2159.)
     """
@@ -62,13 +61,12 @@ def clean_exit(code: int = 0) -> None:
 
     For library embedders (scripts, notebooks exporting to batch jobs,
     services) that drive the render pipeline directly instead of through
-    ``run_cli``: when the device link is cold or dead, the background link
-    probe/watchdog daemon threads may still be blocked inside a device
-    transfer, and normal CPython teardown of the runtime beneath them can
-    abort the process (C++ ``terminate``) *after* all useful work
+    ``run_cli``: after a dispatch watchdog timed out (or the opt-in ``auto``
+    link probe stalled), a daemon thread may still be blocked inside a
+    device transfer, and normal CPython teardown of the runtime beneath it
+    can abort the process (C++ ``terminate``) *after* all useful work
     finished.  Call this as the last statement of such a script to get a
-    deterministic exit code instead.  Never needed on a directly-attached
-    healthy device (the probe completes in milliseconds).
+    deterministic exit code instead.
     """
     import os
 

@@ -273,7 +273,11 @@ def get_cdf_var_shapes(
     variable_names: list[str] = CDF_VARIABLE_NAMES,
 ) -> dict[str, list[tuple[int, ...] | None]]:
     """Survey variable shapes across every CDF under a folder."""
-    from tqdm import tqdm
+    try:
+        from tqdm import tqdm
+    except ImportError:  # progress bars are optional
+        def tqdm(it, **_kw):
+            return it
 
     paths = [str(p) for p in Path(cdf_folder_path).rglob("*.[cC][dD][fF]")]
     return {

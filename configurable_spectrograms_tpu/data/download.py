@@ -134,7 +134,11 @@ def FAST_ESA_CDF_download(
     cached listing, so single-day and full-year downloads share one code
     path (reference download.py:146-193).
     """
-    from tqdm import tqdm
+    try:
+        from tqdm import tqdm
+    except ImportError:  # progress bars are optional
+        def tqdm(it, **_kw):
+            return it
 
     for month_num in range(1, 13):
         month = f"{month_num:02d}"

@@ -9,8 +9,8 @@ responsive wait loop, double-interrupt SIGINT/SIGTERM escalation, and one
 retry pass of timed-out orbits with a shrunken pool.
 
 Concurrency is thread-based rather than process-based: rendering is
-device-bound on the host's one TPU (worker threads overlap CDF decode and
-PNG encode while device dispatches serialize on the TPU stream), so a
+device-bound in one accelerator process (worker threads overlap CDF decode
+and PNG encode while device dispatches queue on the device), so a
 process pool would only add pickling plus a device-contention hazard.
 ``max_workers`` sizes the host thread pool.
 """
@@ -368,9 +368,13 @@ def _consume_result(
         return
     results.append(result)
     if echo:
-        from tqdm import tqdm
-
-        tqdm.write(f"[BATCH] Completed orbit {orbit}: {result.get('status')}")
+        line = f"[BATCH] Completed orbit {orbit}: {result.get('status')}"
+        try:
+            from tqdm import tqdm
+        except ImportError:
+            print(line)
+        else:
+            tqdm.write(line)
     ledger.record(orbit, result)
 
 
@@ -417,9 +421,12 @@ def _run_job_pool(
 
         bar = None
         if show_bar:
-            from tqdm import tqdm
-
-            bar = tqdm(total=len(outstanding), desc=bar_desc, unit="orbit", leave=False)
+            try:
+                from tqdm import tqdm
+            except ImportError:  # progress bars are optional
+                tqdm = None
+            if tqdm is not None:
+                bar = tqdm(total=len(outstanding), desc=bar_desc, unit="orbit", leave=False)
         try:
             with device_trace(profile_dir):
                 while outstanding and not shutdown["flag"]:

@@ -332,7 +332,7 @@ def compute_global_extrema(
                         # up to orbit i, and the monotone max over prefixes
                         # depends on those exact prefixes.  The tracker is
                         # fully host-consistent (host collapse + binning):
-                        # on-silicon log10 can differ from the host by an
+                        # an accelerator's log10 can differ from the host by an
                         # ulp at a bin edge, and mixing the device histogram
                         # with host-gathered values would trip the tracker's
                         # count consistency check.

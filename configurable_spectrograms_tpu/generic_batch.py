@@ -5,7 +5,7 @@ exactly one ``generic_plot_spectrogram_set`` call inside a
 :func:`run_batch` worker and saves ``output_dir/<item>/generic.png`` at
 150 DPI, so the batch driver and the single-output function produce
 identical files for identical inputs.  Workers run in threads (host I/O +
-PNG encode overlap around the one TPU) instead of the reference's process
+PNG encode overlap around the one accelerator process) instead of the reference's process
 pool.
 """
 

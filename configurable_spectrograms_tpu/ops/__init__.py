@@ -1,7 +1,7 @@
-"""Device-side (JAX/XLA/Pallas) spectrogram math.
+"""Device-side (JAX/XLA) spectrogram math.
 
 Everything here is jittable with static shapes, vmappable across panels,
-and runnable on TPU or the virtual CPU mesh used in tests.  The op set
+and runnable on a GPU or the virtual CPU mesh used in tests.  The op set
 mirrors what the reference does with numpy + matplotlib per panel
 (reference plotting.py:92-389): pitch-category masked nansum collapse,
 NaN-column/energy-range masking, percentile color bounds, log/linear

@@ -43,11 +43,11 @@ LOG_HI = 12.0
 def sorted_bincount(bins: jax.Array, n_bins: int) -> jax.Array:
     """Histogram of integer *bins* via sort + vectorized binary search.
 
-    TPU-friendly: a scatter-add (``.at[].add``) histogram compiles to an
-    enormous serialized loop on TPU (observed ~9 min compile for ~50k
-    updates); sort + ``searchsorted`` over the bin edges compiles in
-    seconds and runs memory-bound.  Entries >= ``n_bins`` fall off the end
-    (use as the invalid/overflow slot).
+    Sort + ``searchsorted`` over the bin edges stands in for a scatter-add
+    (``.at[].add``) histogram, which compiled to a long serialized loop on
+    the accelerator this was first written for; whether a scatter-add is
+    the faster choice on a GPU is unmeasured.  Entries >= ``n_bins`` fall
+    off the end (use as the invalid/overflow slot).
     """
     s = jnp.sort(jnp.ravel(bins))
     edges = jax.lax.broadcasted_iota(jnp.int32, (n_bins + 1, 1), 0)[:, 0]
@@ -79,7 +79,7 @@ def _batched_stats_fn(sharded: bool, mesh=None):
     """The (cached) jitted per-file stats program, optionally mesh-sharded.
 
     When sharded, files partition over the data-parallel mesh's ``data``
-    axis: the per-file reduction needs zero collectives, so each chip scans
+    axis: the per-file reduction needs zero collectives, so each device scans
     its shard of the archive -- the extrema pre-pass's multi-chip fan-out
     (the host-pooled equivalent is reference fast/extrema.py:245-285).
     Production callers pass the mesh they already captured:
@@ -136,9 +136,8 @@ def value_bins(values: np.ndarray) -> np.ndarray:
 def host_file_stats(cube: np.ndarray) -> dict[str, np.ndarray]:
     """Pure-numpy mirror of :func:`file_extrema_stats` (same float32 math).
 
-    The extrema pre-pass runs *before* any figure render, so it must make
-    its own device-vs-host decision; when the device link is down this is
-    what keeps the whole batch pipeline alive.
+    The host backend's extrema statistics and the device path's parity
+    reference.
     """
     collapsed = np.where(np.isnan(cube), np.float32(0.0), cube).sum(axis=1, dtype=np.float32)
     fp = np.isfinite(collapsed) & (collapsed > 0)
@@ -154,8 +153,8 @@ def batched_file_stats(cubes: list[np.ndarray]) -> list[dict[str, np.ndarray]]:
     the collapse masks out via ``t_valid`` and nansum semantics).  On a
     multi-device host the file batch additionally pads to a multiple of
     the device count (all-NaN dummy files reduce to empty summaries) and
-    shards over the mesh.  When the render backend has fallen back to the
-    host (dead/degraded device link), the stats compute in numpy instead.
+    shards over the mesh.  On the host backend (``CST_RENDER_BACKEND=host``,
+    or ``auto`` after it demoted the device) the stats compute in numpy.
     """
     if not cubes:
         return []

@@ -25,7 +25,7 @@ the colored pixels matplotlib's ``imshow`` produces
 All shapes are static: callers pad the time/energy axes and pass validity
 counts, so one compiled program serves every orbit in a padding bucket.
 ``render_panels`` vmaps the whole pipeline across the rows of a figure (and
-across figures), which is where the TPU throughput comes from: an entire
+across figures), which is where the device throughput comes from: an entire
 multirow grid -- or a whole batch of orbits -- rasterizes in one device
 dispatch instead of one matplotlib Agg draw per panel.
 """
@@ -145,8 +145,7 @@ def masked_nanpercentile(values: jax.Array, valid: jax.Array, q: jax.Array | flo
 
     Sort-free with static shapes: the two bracketing order statistics at
     ``pos = q/100 * (n-1)`` come from the bitwise binary-search selection
-    (:func:`select_order_stats` -- bit-identical to sorting, ~4x faster on
-    TPU at panel shapes), and the result interpolates between them with
+    (:func:`select_order_stats` -- bit-identical to sorting), and the result interpolates between them with
     numpy's exact ``_lerp`` arithmetic.  Returns NaN when nothing is valid.
     """
     flat = jnp.ravel(values)

@@ -3,9 +3,12 @@
 New capability beyond the reference (BASELINE.json configs[4]): a windowed
 FFT front-end producing (time, 1, freq) cubes that flow through the exact
 same collapse/percentile/normalize/resample/LUT pipeline as FAST ESA data.
-TPU mapping: framing is a strided gather, the window is a fused elementwise
-multiply, the FFT lowers to XLA's native TPU FFT, and the mel projection is
-a single (frames x n_fft/2+1) @ (n_fft/2+1 x n_mels) matmul on the MXU.
+Device mapping: framing is a strided gather, the window is a fused
+elementwise multiply, the FFT lowers to XLA's FFT (cuFFT on a GPU), and the
+mel projection is a single (frames x n_fft/2+1) @ (n_fft/2+1 x n_mels)
+matmul.  Every matmul asks for ``Precision.HIGHEST``: a float32 product may
+otherwise run in TF32 on a GPU's tensor cores, which keeps about three
+decimal digits.
 """
 
 from __future__ import annotations
@@ -36,8 +39,7 @@ def _dft_bases(frame_length: int) -> tuple[np.ndarray, np.ndarray]:
     """Windowed real-DFT basis matrices (L, L//2+1) float32.
 
     The Hann window is folded into the bases, so the framed signal goes
-    straight into two matmuls -- one fused MXU-friendly program with no
-    separate window multiply pass.
+    straight into two matmuls with no separate window multiply pass.
     """
     n = np.arange(frame_length, dtype=np.float64)[:, None]
     k = np.arange(frame_length // 2 + 1, dtype=np.float64)[None, :]
@@ -58,51 +60,24 @@ def stft_magnitude(
 
     Two equivalent device programs (same math, different hardware units):
 
-    - ``"fft"``: window multiply + XLA's native rFFT.
+    - ``"fft"``: window multiply + XLA's rFFT.
     - ``"matmul"``: the framed signal times two window-folded DFT basis
-      matrices -- O(L) more FLOPs than the FFT but they all land on the
-      MXU as one large (F, L) @ (L, L//2+1) pair, which on TPU beats the
-      FFT path for typical audio frame lengths (see tools/bench_stft.py
-      for the measured crossover on real silicon).
-    - ``"pallas"``: the same window-folded DFT as one hand-written fused
-      kernel (``ops.pallas_kernels.stft_power_pallas``) with the power
-      epilogue in VMEM; equal to ``"matmul"`` up to float32 dot
-      reassociation.
+      matrices, one (F, L) @ (L, L//2+1) pair -- O(L) more FLOPs than the
+      FFT, in float32 at ``Precision.HIGHEST``.
     """
     frames = frame_signal(jnp.asarray(x, jnp.float32), frame_length, hop_length)
-    if method in ("matmul", "pallas"):
+    if method == "matmul":
         cos_b, sin_b = _dft_bases(frame_length)
-        if method == "pallas" and frame_length > 4096:
-            # The kernel keeps (f_tile, L) frames plus two (L, k_tile)
-            # bases resident in VMEM per grid step (~12*L KB); past 4096
-            # the blocks no longer fit and Mosaic compilation fails, so
-            # fall back to the identical matmul math (the same pattern
-            # collapse_cube_pallas documents for unpadded shapes).
-            method = "matmul"
-        if method == "pallas":
-            from configurable_spectrograms_tpu.ops.pallas_kernels import stft_power_pallas
-
-            F = frames.shape[0]
-            K = cos_b.shape[1]
-            f_tile, k_tile = 128, 128
-            Fp = max(f_tile, ((F + f_tile - 1) // f_tile) * f_tile)
-            Kp = max(k_tile, ((K + k_tile - 1) // k_tile) * k_tile)
-            frames_p = jnp.pad(frames, ((0, Fp - F), (0, 0)))
-            cos_p = np.pad(cos_b, ((0, 0), (0, Kp - K)))
-            sin_p = np.pad(sin_b, ((0, 0), (0, Kp - K)))
-            p2 = stft_power_pallas(
-                frames_p, jnp.asarray(cos_p), jnp.asarray(sin_p), f_tile, k_tile
-            )[:F, :K]
-        else:
-            re = jnp.dot(frames, jnp.asarray(cos_b), preferred_element_type=jnp.float32)
-            im = jnp.dot(frames, jnp.asarray(sin_b), preferred_element_type=jnp.float32)
-            p2 = re * re + im * im
+        hi = jax.lax.Precision.HIGHEST
+        re = jnp.dot(frames, jnp.asarray(cos_b), precision=hi, preferred_element_type=jnp.float32)
+        im = jnp.dot(frames, jnp.asarray(sin_b), precision=hi, preferred_element_type=jnp.float32)
+        p2 = re * re + im * im
         if power == 2.0:
             return p2
         mag = jnp.sqrt(p2)
         return mag if power == 1.0 else jnp.power(mag, power)
     if method != "fft":
-        raise ValueError(f"unknown stft method {method!r} (expected 'fft', 'matmul', or 'pallas')")
+        raise ValueError(f"unknown stft method {method!r} (expected 'fft' or 'matmul')")
     windowed = frames * jnp.asarray(hann_window(frame_length))
     spec = jnp.fft.rfft(windowed, axis=-1)
     mag = jnp.abs(spec)
@@ -156,12 +131,15 @@ def mel_spectrogram(
     power: float = 2.0,
     method: str = "fft",
 ) -> jax.Array:
-    """Mel spectrogram: (N,) -> (frames, n_mels) via an MXU matmul."""
+    """Mel spectrogram: (N,) -> (frames, n_mels) via one matmul."""
     mag = stft_magnitude(
         x, frame_length=frame_length, hop_length=hop_length, power=power, method=method
     )
     weights, _ = mel_filterbank(n_mels, frame_length, float(sample_rate))
-    return jnp.dot(mag, jnp.asarray(weights), preferred_element_type=jnp.float32)
+    return jnp.dot(
+        mag, jnp.asarray(weights), precision=jax.lax.Precision.HIGHEST,
+        preferred_element_type=jnp.float32,
+    )
 
 
 def host_stft_magnitude(
@@ -169,7 +147,7 @@ def host_stft_magnitude(
 ) -> np.ndarray:
     """Numpy mirror of :func:`stft_magnitude` (``method="fft"`` math).
 
-    The resilience fallback for dead/degraded device links -- same
+    The host backend's STFT and the device paths' parity reference -- same
     framing, periodic Hann window, and rFFT semantics.
     """
     x = np.asarray(x, np.float32)
@@ -196,22 +174,22 @@ def audio_spectrogram_dataset(
     The (frames, freq) device spectrogram becomes a (time, 1, freq) cube so
     it flows through the standard pipeline; ``x`` is frame-center seconds
     (``x_is_unix=False`` at plot time), ``y`` is Hz (FFT bins) or mel
-    center frequencies.  Shares the render backend's link state: on a
-    dead/degraded link the STFT computes in numpy (an unbounded device
-    readback here would hang the CLI the same way an unbounded render
-    transfer would).
+    center frequencies.  Follows the render backend: ``host`` computes in
+    numpy; ``device`` computes on the accelerator and raises if the
+    dispatch exceeds its watchdog; ``auto`` falls back to numpy then.
     """
     from configurable_spectrograms_tpu.render.figure import (
+        _BACKEND,
         _bounded_call,
         _dispatch_timeout,
         _host_backend_active,
         probe_device_link,
     )
 
-    if method not in ("fft", "matmul", "pallas"):
+    if method not in ("fft", "matmul"):
         # Validate up front so a typo fails identically on both backends
         # (the host fallback always computes fft math).
-        raise ValueError(f"unknown stft method {method!r} (expected 'fft', 'matmul', or 'pallas')")
+        raise ValueError(f"unknown stft method {method!r} (expected 'fft' or 'matmul')")
     probe_device_link()
     weights = None
     if n_mels is not None:
@@ -236,11 +214,16 @@ def audio_spectrogram_dataset(
                 spec = stft_magnitude(x, frame_length, hop_length, power, method)
             return np.asarray(spec)
 
-        # Same mid-run hazard as render/extrema transfers: the preflight is
-        # one-shot, so a link dying later would hang the readback forever
-        # without this bound.
-        ok, spec_np = _bounded_call(_device, _dispatch_timeout())
+        # Same watchdog as the render/extrema transfers: a hung readback
+        # would otherwise block the CLI forever.
+        timeout = _dispatch_timeout()
+        ok, spec_np = _bounded_call(_device, timeout)
         if not ok:
+            if _BACKEND["mode"] == "device":
+                raise RuntimeError(
+                    f"audio STFT dispatch/readback exceeded {timeout:.0f}s "
+                    "(CST_DEVICE_DISPATCH_TIMEOUT) with CST_RENDER_BACKEND=device"
+                )
             from configurable_spectrograms_tpu.utils.logging import log_error
 
             log_error(

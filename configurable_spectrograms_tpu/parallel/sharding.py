@@ -4,8 +4,8 @@ The render path is embarrassingly parallel across panels, so scaling is
 pure data parallelism: pad the panel batch to a multiple of the ``data``
 axis, place every per-panel input with ``NamedSharding(mesh, P('data'))``,
 and jit once -- XLA partitions the whole collapse+percentile+resample+LUT
-pipeline with zero collectives and each chip rasterizes its shard.  This
-is the TPU replacement for the reference's 4-process plot pool
+pipeline with zero collectives and each device rasterizes its shard.  This
+is the replacement for the reference's 4-process plot pool
 (reference fast/batch_directory.py:337).
 """
 

@@ -8,7 +8,7 @@ the figure only accumulates :class:`PanelData` descriptions.  At render
 time every panel in the figure (and, via
 :func:`~configurable_spectrograms_tpu.render.dispatch.device_render_panels`,
 every panel across a *batch* of figures) is padded into shape buckets and
-rasterized in a handful of vmapped TPU dispatches; the PIL compositor then
+rasterized in a handful of vmapped device dispatches; the PIL compositor then
 draws frames, ticks, labels, colorbars, cusp markers, and titles around the
 device-produced tiles.
 
@@ -262,8 +262,7 @@ def render_figures(figures: list["SpectroFigure"], dpi: float | None = None) -> 
 
     # One gate slot spans the WHOLE render: with only composite/encode
     # gated, sibling feeder threads' ungated Python steals GIL slices from
-    # the gate holder (~10% wall on warm 4-thread batches, docs/budget.md
-    # round-5 notes).  The slot is yielded around the coalesced render --
+    # the gate holder on warm multi-thread batches.  The slot is yielded around the coalesced render --
     # the one section that legitimately blocks on the device -- so wide
     # pools still overlap device waits exactly as before.
     with host_compute_gate():

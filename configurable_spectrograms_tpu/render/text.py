@@ -1,15 +1,14 @@
 """Font loading and text drawing helpers for the PIL compositor.
 
 Uses DejaVu Sans (matplotlib's default font family, so rendered figures
-look like the reference's) located from matplotlib's data directory when
-available, with a bundled-PIL fallback.  No matplotlib rendering code runs;
-only the .ttf file is borrowed.
+look like the reference's), shipped with the package under ``fonts/``
+(its license is ``fonts/LICENSE_DEJAVU``), so a figure's text is the same
+on every installation.  No matplotlib code runs.
 """
 
 from __future__ import annotations
 
 import functools
-import glob
 import os
 
 import numpy as np
@@ -21,37 +20,14 @@ from configurable_spectrograms_tpu.render import fastpng
 #: (native blend unavailable) in the per-canvas paste cache.
 _UNSET = object()
 
-_FONT_CANDIDATES = [
-    "/opt/venv/lib/python*/site-packages/matplotlib/mpl-data/fonts/ttf/DejaVuSans.ttf",
-    "/usr/lib/python*/site-packages/matplotlib/mpl-data/fonts/ttf/DejaVuSans.ttf",
-    "/usr/share/fonts/truetype/dejavu/DejaVuSans.ttf",
-]
-
-
-@functools.lru_cache(maxsize=1)
-def _font_path() -> str | None:
-    try:
-        import matplotlib
-
-        p = os.path.join(matplotlib.get_data_path(), "fonts", "ttf", "DejaVuSans.ttf")
-        if os.path.exists(p):
-            return p
-    except Exception:
-        pass
-    for pattern in _FONT_CANDIDATES:
-        hits = glob.glob(pattern)
-        if hits:
-            return hits[0]
-    return None
+#: The bundled DejaVu Sans.
+FONT_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fonts", "DejaVuSans.ttf")
 
 
 @functools.lru_cache(maxsize=64)
-def get_font(px: int) -> ImageFont.FreeTypeFont | ImageFont.ImageFont:
+def get_font(px: int) -> ImageFont.FreeTypeFont:
     """A font whose nominal size is *px* pixels."""
-    path = _font_path()
-    if path is not None:
-        return ImageFont.truetype(path, px)
-    return ImageFont.load_default()
+    return ImageFont.truetype(FONT_PATH, px)
 
 
 def pt_to_px(points: float, dpi: float) -> int:

@@ -4,9 +4,9 @@ The device backend sizes its feeder pool for OVERLAP: threads that wait
 on the link/chip release the GIL, so more threads than cores pay off
 while device work is in flight.  But the host-CPU-bound stages those
 same threads run -- compositing, PNG encode -- degrade under
-oversubscription: on a 1-core box, 4 threads of pure host work measure
-~25% slower than 1 (GIL handoffs + 4 concurrent ~35 MB canvases
-thrashing the cache; see docs/budget.md round-5 notes).  The reference
+oversubscription: on a small box, several threads of pure host work run
+slower than one (GIL handoffs + concurrent ~35 MB canvases thrashing the
+cache).  The reference
 never faced this split: its process pool ran one figure per process end
 to end (reference fast/batch_directory.py:337).
 

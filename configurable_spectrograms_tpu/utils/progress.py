@@ -32,8 +32,8 @@ def atomic_write_json(path: str, payload: Any, *, indent: int = 2) -> None:
     filesystems) power loss; the containing directory is deliberately not
     fsynced, so a power cut can still roll back to the previous document
     — never to a torn one.  It also never truncates a writeback-dirty hot
-    file, which measured ~1 s open() stalls under full page-cache pressure
-    at archive scale (docs/budget.md, 40-orbit run).
+    file, which stalls open() under full page-cache pressure at archive
+    scale.
 
     Raises ``OSError`` on any filesystem failure (callers keep their
     existing log-and-continue handling); the temp file is removed on every

@@ -2,7 +2,7 @@
 
 The reference's only observability is wall-clock ``[TIMING]`` log lines
 (reference fast/process_orbit.py:198-201,261-264), which this framework
-also emits.  This module adds the TPU-side equivalents SURVEY.md section 5
+also emits.  This module adds the device-side equivalents SURVEY.md section 5
 calls for: a :class:`StageTimer` for named host/device stages and a
 :func:`device_trace` context manager wrapping ``jax.profiler.trace`` so a
 batch run can drop an XPlane trace viewable in TensorBoard/XProf.

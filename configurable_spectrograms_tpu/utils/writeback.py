@@ -1,11 +1,10 @@
 """Paced page-cache writeback for bulk PNG output.
 
-Archive-scale batches write gigabytes of PNGs (the 40-orbit round-3 run:
-953 MB).  Left to the kernel, that output accumulates as dirty page cache
-until writeback throttling stalls every other I/O the run needs --
-truncating opens of the progress ledger measured ~1 s, and end-to-end
-throughput fell to 1.91 figs/s against 7.3 figs/s compute-side
-(docs/budget.md, round-3 scale validation).  The reference has the same
+Archive-scale batches write gigabytes of PNGs.  Left to the kernel, that
+output accumulates as dirty page cache until writeback throttling stalls
+every other I/O the run needs -- truncating opens of the progress ledger
+stall, and end-to-end throughput falls well below what the render
+threads compute.  The reference has the same
 failure mode (its process pool writes the same bytes through the same
 page cache; reference fast/process_orbit.py:98-117) -- it just never ran
 at a scale that exposed it.

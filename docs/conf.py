@@ -1,4 +1,4 @@
-"""Sphinx configuration for the TPU-native spectrogram engine docs.
+"""Sphinx configuration for the spectrogram engine docs.
 
 The documentation sources are the Markdown files in this directory
 (architecture, parity, budget, deployment, API reference), parsed with
@@ -17,8 +17,8 @@ from datetime import datetime, timezone
 
 sys.path.insert(0, os.path.abspath(".."))
 
-project = "Configurable Spectrograms TPU"
-author = "configurable-spectrograms-tpu contributors"
+project = "Configurable Spectrograms"
+author = "configurable-spectrograms contributors"
 copyright = f"{datetime.now(timezone.utc).year}, {author}"
 
 extensions = [

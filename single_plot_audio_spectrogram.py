@@ -81,8 +81,8 @@ def main() -> int:
     parser.add_argument("--z-scale", choices=("linear", "log"), default="log")
     parser.add_argument("--colormap", default="magma")
     parser.add_argument(
-        "--stft-method", choices=("fft", "matmul", "pallas"), default="fft",
-        help="Device STFT program: XLA rFFT, MXU DFT-basis matmuls, or the fused Pallas kernel.",
+        "--stft-method", choices=("fft", "matmul"), default="fft",
+        help="Device STFT program: XLA rFFT or DFT-basis matmuls.",
     )
     args = parser.parse_args()
 
@@ -106,9 +106,9 @@ def main() -> int:
 
 if __name__ == "__main__":
     # run_cli provides the shared 130-on-interrupt behavior AND the
-    # flush+hard-exit teardown: on a cold/dead device link the probe's
-    # daemon thread stays blocked in a transfer, and plain interpreter
-    # teardown beneath it can abort after a successful save.
+    # flush+hard-exit teardown: a timed-out dispatch leaves a daemon
+    # thread blocked in a transfer, and plain interpreter teardown
+    # beneath it can abort after a successful save.
     from configurable_spectrograms_tpu.cli.common import run_cli
 
     run_cli(main)

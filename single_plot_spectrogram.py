@@ -3,7 +3,7 @@
 
 Same flags and exit codes as the reference's script of this name
 (reference single_plot_spectrogram.py:94-125): 0 = saved, 1 = nothing to
-plot, 130 = interrupted.  Rendering goes through the TPU-native pipeline.
+plot, 130 = interrupted.  Rendering goes through the device pipeline.
 """
 
 import argparse

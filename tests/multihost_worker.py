@@ -1,8 +1,8 @@
 """Subprocess worker for the real two-process multi-host test.
 
 Each process owns 4 virtual CPU devices; together they form an 8-device
-DCN "cluster" (Gloo collectives), the CPU stand-in for multi-host TPU
-prescribed by SURVEY.md section 4.  Run by tests/test_multihost.py as::
+"cluster" (Gloo collectives), the CPU stand-in for a multi-host
+accelerator run prescribed by SURVEY.md section 4.  Run by tests/test_multihost.py as::
 
     python multihost_worker.py <process_id> <num_processes> <port>
 """

@@ -399,3 +399,20 @@ def test_copy_saved_png_is_atomic(tmp_path):
     _copy_saved_png(str(src), str(dst))
     assert dst.read_bytes() == src.read_bytes()
     assert not list(tmp_path.glob("*.tmp-*"))
+
+
+def test_font_loads_from_the_package():
+    """Figure text uses the DejaVu Sans shipped in the package, so it does
+    not depend on matplotlib or on the fonts an installation happens to have."""
+    import os
+
+    import configurable_spectrograms_tpu
+    from configurable_spectrograms_tpu.render import text
+
+    pkg = os.path.dirname(os.path.abspath(configurable_spectrograms_tpu.__file__))
+    assert text.FONT_PATH == os.path.join(pkg, "render", "fonts", "DejaVuSans.ttf")
+    assert os.path.isfile(text.FONT_PATH)
+    assert os.path.isfile(os.path.join(pkg, "render", "fonts", "LICENSE_DEJAVU"))
+    font = text.get_font(14)
+    assert font.path == text.FONT_PATH
+    assert font.getname() == ("DejaVu Sans", "Book")

@@ -374,11 +374,18 @@ def test_driver_sweeps_stale_tmp_files(tmp_path):
     """Stranded *.tmp-* siblings from a SIGKILLed save are removed at
     driver entry (atomic saves never publish them as .png, but the
     unique pid/thread names mean no later process overwrites them)."""
+    import subprocess
+    import sys
+
     from configurable_spectrograms_tpu.fast.batch_directory import _sweep_stale_tmp
 
+    # The pid of a process that has exited: a hard-coded pid may be alive
+    # on the test host, and a live owner's tmp is kept by design.
+    child = subprocess.Popen([sys.executable, "-c", "pass"])
+    child.wait()
     out = tmp_path / "plots" / "2001" / "01" / "3000"
     out.mkdir(parents=True)
-    stale = out / "3000_x.png.tmp-123-456"
+    stale = out / f"3000_x.png.tmp-{child.pid}-456"
     stale.write_bytes(b"partial")
     keep = out / "3000_x.png"
     keep.write_bytes(b"\x89PNG done")

@@ -48,3 +48,31 @@ def test_ensure_devices_provisions_virtual_cpus(tmp_path):
     )
     assert out.returncode == 0, out.stderr[-2000:]
     assert "ENSURE_OK" in out.stdout
+
+
+@pytest.mark.parametrize("n_gpus", [1, 3])
+def test_ensure_devices_raises_on_short_gpu_platform(monkeypatch, n_gpus):
+    """On an accelerator with too few devices the dry run raises; it never
+    moves itself to virtual CPU devices behind the caller's back."""
+    import jax.extend.backend
+
+    import __graft_entry__ as g
+
+    cleared = []
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    monkeypatch.setattr(jax, "device_count", lambda: n_gpus)
+    monkeypatch.setattr(jax.extend.backend, "clear_backends", lambda: cleared.append(1))
+    with pytest.raises(RuntimeError, match="gpu platform has"):
+        g._ensure_devices(4)
+    assert not cleared
+
+
+def test_ensure_devices_accepts_enough_gpus(monkeypatch):
+    import jax.extend.backend
+
+    import __graft_entry__ as g
+
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    monkeypatch.setattr(jax, "device_count", lambda: 4)
+    monkeypatch.setattr(jax.extend.backend, "clear_backends", lambda: pytest.fail("cleared"))
+    g._ensure_devices(4)

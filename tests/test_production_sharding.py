@@ -309,7 +309,7 @@ def _quantize_cost(rng, sharded: bool, explicit: bool = False) -> dict:
                               t_starts, t_counts, z_bounds, zb_e_valids,
                               zb_full, t_maps)
     fn = figure._batched_quantize_fn(
-        ("log", "log", 1.0, 99.0, explicit, g.gather_w, Ap, Ep, sharded, "xla")
+        ("log", "log", 1.0, 99.0, explicit, g.gather_w, Ap, Ep, sharded)
     )
     ca = fn.lower(rows, cubes_np).compile().cost_analysis()
     return ca[0] if isinstance(ca, list) else ca

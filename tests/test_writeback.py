@@ -1,8 +1,7 @@
 """Paced page-cache writeback for bulk PNG output (utils/writeback.py).
 
-Round-3 scale validation measured end-to-end throughput collapsing to
-1.91 figs/s against 7.3 figs/s compute-side from accumulated dirty pages
-(docs/budget.md); the pacer bounds the debt off the render threads.
+Archive-scale runs lose end-to-end throughput to accumulated dirty pages;
+the pacer bounds the debt off the render threads.
 """
 
 import os

@@ -1,11 +1,12 @@
 #!/usr/bin/env python
 """Measure the percentile-bounds sort's share of device figure compute.
 
-VERDICT r4 item 5: percentile-bounds panels (the raw half of every
-flagship batch) pay a full ``jnp.sort`` per panel on device
-(ops/spectrogram.py masked_nanpercentile); explicit-bounds panels skip
-it.  This tool times, on real silicon with the fori_loop on-device
-protocol (same methodology as tools/bench_pallas_quantize.py):
+Percentile-bounds panels (the raw half of every flagship batch) select
+order statistics per panel on device (ops/spectrogram.py
+masked_nanpercentile); explicit-bounds panels skip it.  This tool times,
+on the accelerator with a two-point on-device fori_loop protocol (a short
+and a long chain of the same program; the difference over the extra
+repetitions is the per-call device time):
 
 * the explicit-bounds collapse+quantize chain (sort-free),
 * the percentile-bounds chain (sort included),
@@ -13,7 +14,7 @@ protocol (same methodology as tools/bench_pallas_quantize.py):
 
 The difference is the sort's cost; its share of the percentile chain
 decides whether a sort-free device selection is worth building (>10%
-threshold per the VERDICT).  Prints one JSON line.
+threshold).  Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ REPS = 256
 
 
 def _time_chain(make_fn, cube, mask, e_valid) -> float:
-    """Two-point on-device fori_loop timing (see bench_pallas_quantize)."""
+    """Two-point on-device fori_loop timing (see the module docstring)."""
     import jax
     import jax.numpy as jnp
 

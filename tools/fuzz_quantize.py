@@ -26,9 +26,9 @@ for p in (_REPO, os.path.join(_REPO, "tests")):
     if p not in sys.path:
         sys.path.insert(0, p)
 
-# Force the CPU backend BEFORE jax initializes: the sweep must not hold
-# the real TPU grant (only one process may), and CPU is faster for these
-# tiny per-seed programs anyway.
+# Force the CPU backend BEFORE jax initializes: the sweep must not claim an
+# accelerator another process is using, and CPU is faster for these tiny
+# per-seed programs anyway.
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 

@@ -22,6 +22,8 @@ import os
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if REPO not in sys.path:
+    sys.path.insert(0, REPO)
 PACKAGE = "configurable_spectrograms_tpu"
 
 #: Root entry-point scripts, in the reference's documentation order
@@ -122,7 +124,6 @@ def generate() -> str:
 
 
 def main() -> int:
-    sys.path.insert(0, REPO)
     text = generate()
     if "--stdout" in sys.argv:
         sys.stdout.write(text)

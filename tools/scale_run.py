@@ -13,15 +13,15 @@ production archive actually has:
   second invocation must resume from the progress ledger without redoing
   completed work.
 
-The run uses the host backend explicitly: the end-to-end figs/s target is
-a host-path number (the chip only accelerates the quantize stage), and a
-SIGKILLed process must never be holding the TPU grant (environment rule).
+The run uses the host backend explicitly: it validates fault handling and
+resume, not device speed, and a SIGKILLed process should not hold an
+accelerator.
 
 Phases (default ``all``):
   build   synth archive + fault injection
   run     driver run #1, SIGKILLed after --kill-after seconds
   resume  driver run #2 to completion, then run #3 (must be a no-op)
-  verify  count PNGs, check the error taxonomy, write SCALE_r04.json
+  verify  count PNGs, check the error taxonomy, write <root>/scale_result.json
 
 Usage:
   python tools/scale_run.py --root /tmp/scale --orbits 325 --kill-after 180
@@ -164,15 +164,15 @@ def verify(root: pathlib.Path, n_orbits: int, runs: list[dict]) -> dict:
             and (len(runs) < 3 or runs[-1]["wall_s"] < 120)
         ),
     }
-    (REPO / "SCALE_r04.json").write_text(json.dumps(result, indent=2))
+    (root / "scale_result.json").write_text(json.dumps(result, indent=2))
     _progress(f"verify: pngs={pngs} floor={floor} figs/s={figs_per_sec:.2f} "
-              f"taxonomy_ok={not missing_from_taxonomy} -> SCALE_r04.json")
+              f"taxonomy_ok={not missing_from_taxonomy} -> {root / 'scale_result.json'}")
     return result
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--root", default="/tmp/scale_r04")
+    ap.add_argument("--root", default="/tmp/scale_run")
     ap.add_argument("--orbits", type=int, default=325)
     ap.add_argument("--kill-after", type=float, default=180.0)
     ap.add_argument("--phase", default="all",
